@@ -1,6 +1,6 @@
 """Headline benchmark: chr21-scale multi-genome inexact alignment (reads/s).
 
-The honest workload (VERDICT r1 item 2) — everything the aligner exists for:
+The honest workload — everything the aligner exists for:
 - 46.7 Mbp chr21-like reference with diverged-repeat structure (30% of
   500 bp blocks are mutated copies of earlier blocks);
 - a synthetic 1000G-style VCF at 1 SNP / 100 bp and 1 indel / 1000 bp,
@@ -11,7 +11,7 @@ The honest workload (VERDICT r1 item 2) — everything the aligner exists for:
   (capped at 4) and a 1-3 bp indel on 12% of reads, both strands;
 - alignment with -n 4 (gaps enabled via default -o 1 -e 6).
 
-Self-verifying (VERDICT r2 item 2): the baseline is MEASURED IN-BAND —
+Self-verifying: the baseline is MEASURED IN-BAND —
 this script compiles the reference aligner (gcc -O3, one core), runs
 `bwbble align -n 4` once on the exact same reads, and caches the result
 in .bench/<world>/baseline*.json; there are no hardcoded baseline
@@ -34,9 +34,8 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-
 GENOME_BP = 46_700_000
+EASY_BP = 5_000_000
 NUM_READS = 16_384      # reads in the cached worlds
 CHR21_BENCH_READS = 8_192   # aligned by the chr21 bench run (rate metric)
 READ_LEN = 100
@@ -129,9 +128,10 @@ def ensure_baseline(world: str, fa: str, fq: str, n_reads: int,
     return rps_match, aln
 
 
-def build_world(hard: bool = False):
-    """Build (once, cached) the chr21-scale multi-genome world; returns
-    (FMIndex, Reads, world_dir).
+def write_chr21_inputs(d: str, num_reads: int, hard: bool = False,
+                       genome_bp: int = GENOME_BP) -> tuple[str, str]:
+    """Write (once, cached in `d`) the chr21-scale multi-genome inputs;
+    returns (bubble FASTA, reads FASTQ).
 
     Default: diverged repeats (15% of blocks are single copies of fresh
     blocks at 5% divergence — near the -n 4 ambiguity boundary).  hard=True
@@ -139,29 +139,24 @@ def build_world(hard: bool = False):
     hundreds of near-identical members (young-Alu-like pathology; both
     aligners slow dramatically and the comparison is reported separately).
     """
-    from bwbble_tpu.formats.fasta import fasta2ref
-    from bwbble_tpu.formats.fastq import read_fastq
-    from bwbble_tpu.index.fmindex import FMIndex
     from bwbble_tpu.testutil import (random_genome_with_repeats_fasta,
                                      simulate_reads_fastq, synthetic_vcf)
 
-    d = os.path.join(CACHE, "chr21_hard" if hard else "chr21")
     os.makedirs(d, exist_ok=True)
     fa = os.path.join(d, "genome.fa")
     vcf = os.path.join(d, "variants.vcf")
     mg = os.path.join(d, "mg.fa")
     mgb = os.path.join(d, "mg_bubble.fa")
     bdata = os.path.join(d, "bubble.data")
-    fq = os.path.join(d, f"reads_{NUM_READS}.fq")
-    bwt = os.path.join(d, "mg_bubble.bwt")
+    fq = os.path.join(d, f"reads_{num_reads}.fq")
 
     if not os.path.exists(fa):
         if hard:
-            random_genome_with_repeats_fasta(fa, "21", GENOME_BP, seed=11,
+            random_genome_with_repeats_fasta(fa, "21", genome_bp, seed=11,
                                              repeat_frac=0.3, block=500,
                                              mut_rate=0.02, chains=True)
         else:
-            random_genome_with_repeats_fasta(fa, "21", GENOME_BP, seed=11,
+            random_genome_with_repeats_fasta(fa, "21", genome_bp, seed=11,
                                              repeat_frac=0.15, block=500,
                                              mut_rate=0.05)
     if not os.path.exists(vcf):
@@ -174,45 +169,63 @@ def build_world(hard: bool = False):
         subprocess.run([exe, "comb", "-w", "124", fa, mg, mgb, bdata],
                        check=True, cwd=d, stdout=subprocess.DEVNULL)
     if not os.path.exists(fq):
-        simulate_reads_fastq(fa, fq, NUM_READS, read_len=READ_LEN,
+        simulate_reads_fastq(fa, fq, num_reads, read_len=READ_LEN,
                              mm_poisson=1.2, mm_cap=4, indel_frac=0.12,
                              seed=13)
+    return mgb, fq
+
+
+def write_easy_inputs(d: str, num_reads: int,
+                      genome_bp: int = EASY_BP) -> tuple[str, str]:
+    """Write (once, cached in `d`) the 5 Mbp uniform-random world with 2-mm
+    reads; returns (FASTA, reads FASTQ)."""
+    from bwbble_tpu.testutil import random_genome_fasta, simulate_reads_fastq
+
+    os.makedirs(d, exist_ok=True)
+    fa = os.path.join(d, "bench.fa")
+    fq = os.path.join(d, f"reads_{num_reads}.fq")
+    if not os.path.exists(fa):
+        random_genome_fasta(fa, {"chr1": genome_bp}, seed=11)
+    if not os.path.exists(fq):
+        simulate_reads_fastq(fa, fq, num_reads, read_len=READ_LEN,
+                             num_mm=2, seed=13)
+    return fa, fq
+
+
+def _load_or_build_index(fa: str, bwt: str, ref: str, ann: str):
+    from bwbble_tpu.formats.fasta import fasta2ref
+    from bwbble_tpu.index.fmindex import FMIndex
+
     if os.path.exists(bwt):
-        idx = FMIndex.load(bwt)
-    else:
-        codes, _ann = fasta2ref(mgb, mgb + ".ref", mgb + ".ann")
-        idx = FMIndex.build(codes)
-        idx.store(bwt)
-    reads = read_fastq(fq)
-    return idx, reads, d
+        return FMIndex.load(bwt)
+    codes, _ann = fasta2ref(fa, ref, ann)
+    idx = FMIndex.build(codes)
+    idx.store(bwt)
+    return idx
+
+
+def build_world(hard: bool = False):
+    """Build (once, cached) the chr21-scale multi-genome world; returns
+    (FMIndex, Reads, world_dir)."""
+    from bwbble_tpu.formats.fastq import read_fastq
+
+    d = os.path.join(CACHE, "chr21_hard" if hard else "chr21")
+    mgb, fq = write_chr21_inputs(d, NUM_READS, hard=hard)
+    idx = _load_or_build_index(mgb, os.path.join(d, "mg_bubble.bwt"),
+                               mgb + ".ref", mgb + ".ann")
+    return idx, read_fastq(fq), d
 
 
 def build_world_easy():
-    """Round-1 secondary workload: 5 Mbp uniform random, 2 mm reads."""
-    from bwbble_tpu.formats.fasta import fasta2ref
+    """Secondary workload: 5 Mbp uniform random, 2 mm reads."""
     from bwbble_tpu.formats.fastq import read_fastq
-    from bwbble_tpu.index.fmindex import FMIndex
-    from bwbble_tpu.testutil import random_genome_fasta, simulate_reads_fastq
 
     d = os.path.join(CACHE, "easy")
-    os.makedirs(d, exist_ok=True)
-    fa = os.path.join(d, "bench.fa")
-    fq = os.path.join(d, f"reads_{NUM_READS}.fq")
-    bwt = os.path.join(d, "bench.bwt")
-    if not os.path.exists(fa):
-        random_genome_fasta(fa, {"chr1": 5_000_000}, seed=11)
-    if not os.path.exists(fq):
-        simulate_reads_fastq(fa, fq, NUM_READS, read_len=READ_LEN,
-                             num_mm=2, seed=13)
-    if os.path.exists(bwt):
-        idx = FMIndex.load(bwt)
-    else:
-        codes, _ann = fasta2ref(fa, os.path.join(d, "bench.ref"),
-                                os.path.join(d, "bench.ann"))
-        idx = FMIndex.build(codes)
-        idx.store(bwt)
-    reads = read_fastq(fq)
-    return idx, reads, d
+    fa, fq = write_easy_inputs(d, NUM_READS)
+    idx = _load_or_build_index(fa, os.path.join(d, "bench.bwt"),
+                               os.path.join(d, "bench.ref"),
+                               os.path.join(d, "bench.ann"))
+    return idx, read_fastq(fq), d
 
 
 def main():
@@ -220,12 +233,10 @@ def main():
     hard = "--hard" in sys.argv
     # --single: BASELINE.json config 4 — plain 4-letter reference (-S),
     # the BWA-equivalent 1-to-1 search path (exact_match.c:181-222,
-    # bwt.c:440-463) on the easy pure-ACGT world; runs the resident
-    # Pallas kernel in single-genome mode
+    # bwt.c:440-463) on the easy pure-ACGT world
     single = "--single" in sys.argv
     # --pre: BASELINE config with `-P` (12-mer precalc seeding,
-    # align.c:200-238, main.c:113) on the easy world; the device runs the
-    # seeded per-iteration Pallas kernel (NROOT > 1)
+    # align.c:200-238, main.c:113) on the easy world (NROOT > 1 seeds)
     pre = "--pre" in sys.argv
     t0 = time.time()
     if easy or single or pre:
@@ -251,17 +262,8 @@ def main():
     t_build = time.time() - t0
 
     import jax
-    # Persistent compilation cache (VERDICT r4 item 7): a fresh process
-    # pays ~5 min of XLA/Mosaic compilation for the tier shapes without
-    # it.  Round 3 blamed the cache for "every read flagged D-overflow";
-    # re-validated round 5 with a cold/warm parity probe: the overflow was
-    # the world's true K=4 behavior, numerics are identical with the
-    # cache on (same D bounds, same gold-parity alignments), and the JSON
-    # line still carries the .aln byte-parity bit as the backstop.
-    # BWBBLE_NO_COMPCACHE=1 opts out.
-    if not int(os.environ.get("BWBBLE_NO_COMPCACHE", "0")):
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(CACHE, "jaxcache"))
+    from bwbble_tpu.cli import enable_compilation_cache
+    enable_compilation_cache()
     from bwbble_tpu.align.params import AlnParams
     from bwbble_tpu.engine.device_index import from_fmindex
     from bwbble_tpu.engine.inexact import EngineConfig
@@ -277,11 +279,9 @@ def main():
     _ph("device index uploaded")
     precalc = None
     if easy or single or pre:
-        # easy-world configs run FIXED 8192-lane batches on the
-        # per-iteration kernel: per-read work is tiny (~300 units), so
-        # per-launch host overhead dominates the queued engine here
-        # (measured 7766 vs 1935 r/s for -S), while chr21's heavy reads
-        # amortize it and win with the queued resident engine.
+        # easy-world configs run FIXED 8192-lane batches: per-read work is
+        # tiny, so per-launch host overhead dominates the queued engine
+        # here, while chr21's heavy reads amortize it.
         params = AlnParams(max_diff=4, batch_size=8192,
                            is_multiref=not single, use_precalc=pre)
         cfg = EngineConfig(cap=32768, acap=24, kx=2, max_iters=500_000)
@@ -294,26 +294,16 @@ def main():
             _ph("precalc table ready")
     else:
         # chr21 multi-genome: 512 ring lanes at a 28.5K-pop per-read
-        # budget (arena = cap x lanes x 512 B ~= 7.5 GB) measured best
-        # among {128, 256, 512, 1024} lanes — per-lane wave cost grows
-        # superlinearly past ~512 lanes (VMEM pressure) while narrower
-        # single passes lose occupancy to long-tail stragglers.  Failures
-        # escalate through the queued 256/128-lane rungs (57K/114K-pop
-        # budgets at the same arena memory).  D bounds need K=64 interval
-        # slots on IUPAC-dense references.
+        # budget (arena = cap x lanes x 512 B ~= 7.5 GB), carried over
+        # untuned (ROADMAP C5).  Failures escalate through the queued
+        # deep rung at the same arena memory.  D bounds need K=64
+        # interval slots on IUPAC-dense references.
         params = AlnParams(max_diff=4, batch_size=512)
         cfg = EngineConfig(cap=655360, acap=24, kx=2, max_iters=500_000)
         d_cap = 64
 
-    # Continuous batching (ring-queue resident kernel) everywhere except
-    # --single: the round-5 per-lane pop clock made the ring budget
-    # per-read exact (exact-completion waves no longer age a read out),
-    # which removed the failure mode that made ring mode lose to fixed
-    # difficulty-sorted batches on exact-heavy worlds in rounds 3-4.
-    # chr21 runs the ring-queue resident engine as ONE launch
-    # (hardest-first refill absorbs the drain tail, and the deep rung
-    # hides the primary's Aln assembly); the easy-world configs run
-    # fixed batches (see above).
+    # Continuous batching on chr21 (hardest-first refill absorbs the
+    # drain tail); the easy-world configs run fixed batches (see above).
     queued = not (easy or single or pre)
     qchunk = 16
     if not (easy or single or pre):
@@ -353,18 +343,6 @@ def main():
         or stats.get("t_search", 0.0)
     dev_reads = reads.count - fallback
 
-    # HBM roofline (VERDICT r4 item 2): every row the resident kernel's
-    # own DMA moves is 512 bytes (pop rows, rank fat rows, frame writes);
-    # counters are accumulated in-kernel (engine/kernel.py _SC_POPN..)
-    # and summed per launch in the pipeline.  Peak: v5e HBM ~819 GB/s.
-    PEAK_GBPS = 819.0
-    dma_rows = (stats.get("dma_pop_rows", 0) + stats.get("dma_fat_rows", 0)
-                + stats.get("dma_wr_rows", 0))
-    t_s = stats.get("t_search", 0.0) or dt
-    hbm_gbps = dma_rows * 512.0 / t_s / 1e9 if t_s else 0.0
-    pct_peak = 100.0 * hbm_gbps / PEAK_GBPS
-    work_units = stats.get("work_units", 0)
-    work_per_sec = work_units / t_s if t_s else 0.0
     sys.stderr.write(
         f"backend={jax.default_backend()} workload="
         f"{'easy-5Mbp' if easy else 'single-5Mbp-S' if single else 'precalc-5Mbp-P' if pre else ('chr21-hard' if hard else 'chr21-multigenome')} "
@@ -384,11 +362,6 @@ def main():
         f"prerouted={stats.get('prerouted', 0)} "
         f"t_warmup={t_warmup:.1f}s "
         f"waves={stats.get('waves', 0)} "
-        f"hbm_gbps={hbm_gbps:.1f} pct_peak={pct_peak:.2f}% "
-        f"work={work_units} ({work_per_sec / 1e6:.2f}M units/s) "
-        f"dma_rows=pop:{stats.get('dma_pop_rows', 0)}"
-        f"/fat:{stats.get('dma_fat_rows', 0)}"
-        f"/wr:{stats.get('dma_wr_rows', 0)} "
         f"tiers={stats.get('tiers', [])}\n")
     print(json.dumps({
         "metric": ("inexact_align_throughput_easy" if easy else
@@ -401,9 +374,6 @@ def main():
         "vs_baseline": round(reads_per_sec / baseline, 3),
         "parity": parity,
         "t_warmup_s": round(t_warmup, 1),
-        "hbm_gbps": round(hbm_gbps, 1),
-        "pct_peak": round(pct_peak, 2),
-        "work_per_sec": round(work_per_sec, 0),
     }))
 
 

@@ -37,7 +37,6 @@ def main():
     kx = arg("--kx", 16)
     skip = arg("--skip", 0)          # exclude the hardest `skip` reads
     max_iters = arg("--max-iters", 500_000)
-    backend = "xla" if "--xla" in sys.argv else "auto"
     run_all = "--all" in sys.argv
 
     import bench as benchmod
@@ -67,8 +66,7 @@ def main():
     print(f"dbounds {time.time() - t0:.1f}s; hardest {N} reads; "
           f"difficulty z range [{z[hard[0]]}, {z[hard[-1]]}]")
 
-    cfg = EngineConfig(cap=cap, acap=acap, kx=kx, max_iters=max_iters,
-                       backend=backend)
+    cfg = EngineConfig(cap=cap, acap=acap, kx=kx, max_iters=max_iters)
     NSLOT = 23
     NFRAME = (cap - 1) // NSLOT - 1
     Lmax = reads.max_len

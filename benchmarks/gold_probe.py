@@ -1,9 +1,5 @@
 """Per-read native-gold timing across the chr21 difficulty spectrum.
 
-Resolves the round-2 contradiction: bench residual math says the 2330
-tier-failed reads ran through native gold at ~4.5 ms/read, while a direct
-run on the difficulty-sorted hardest 512 timed out at >1.75 s/read.
-
 Samples reads at several difficulty ranks and times align_read_gold on
 each, printing one line per read immediately (so timeouts still inform).
 

@@ -1,5 +1,4 @@
-"""Profile FMIndex.load (186 s per experiment is the iteration tax) and
-measure the native gold engine's calc_d share (candidate win: pass the
+"""Profile FMIndex.load and measure the native gold engine's calc_d share (candidate win: pass the
 device-computed D bounds into the fallback workers).
 
 Run: JAX_PLATFORMS=cpu python benchmarks/load_calcd_probe.py

@@ -1,4 +1,4 @@
-"""Phase-level timing of the headline bench workload (VERDICT r1 item 9).
+"""Phase-level timing of the headline bench workload.
 
 Splits align_reads_device time into: difficulty scoring, calc_d, the
 inexact_search launch, path walks, and host collection; reports the

@@ -1,5 +1,6 @@
 """Per-op profile of one inexact_search launch on the chr21 world at a
-given lane count (default B=1024): evidence for the Pallas loop-body kernel.
+given lane count (default B=1024): where a wave of the XLA body spends its
+time.
 
 Run: python benchmarks/profile_iter.py [B] [cap] [outdir]
 Prints iteration count, wall time, per-iteration cost, and the top device

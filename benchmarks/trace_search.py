@@ -1,5 +1,5 @@
 """Capture a jax-profiler trace of one inexact_search launch and print the
-per-op time table (VERDICT r1 item 9: evidence before optimization).
+per-op time table (evidence before optimization).
 
 Run: python benchmarks/trace_search.py [outdir]
 """

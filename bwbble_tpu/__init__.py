@@ -1,12 +1,13 @@
-"""bwbble_tpu — a TPU-native multi-genome short-read aligner framework.
+"""bwbble_tpu — a JAX multi-genome short-read aligner for one GPU or a host
+of GPUs.
 
 A from-scratch re-design of the capabilities of viq854/bwbble (BWT/FM-index
 short-read alignment against a multi-genome: IUPAC-widened SNP reference plus
-indel "bubbles") for TPU hardware:
+indel "bubbles") for an accelerator:
 
 - host side (Python + C++): sequence/file-format codecs byte-compatible with the
   reference (`.ann`, `.ref`, `.bwt`, `.aln`, SAM), SA-IS index construction;
-- device side (JAX/XLA/Pallas): batched FM-index rank kernels, lockstep
+- device side (JAX/XLA): batched FM-index rank queries, lockstep
   exact/inexact backward-search engines, batched suffix-array resolution;
 - parallel: data parallelism over reads via jax.sharding meshes, with a
   range-sharded index path for whole-genome scale.

@@ -2,8 +2,8 @@
 
 Mirrors the reference's `aln_params_t` and its defaults
 (mg-aligner/align.h:48-79, align.c:22-38) with the same CLI surface
-(main.c:100-117), plus TPU-specific engine knobs that have no counterpart in
-the reference (batch sizes, fixed capacities, index sharding).
+(main.c:100-117), plus device-engine knobs that have no counterpart in the
+reference (batch sizes, fixed capacities, index sharding).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ class AlnParams:
     is_multiref: bool = True   # cleared by -S
     n_threads: int = 1         # -t (host-side; device engine batches instead)
 
-    # --- TPU engine knobs (no reference counterpart) ---
+    # --- device engine knobs (no reference counterpart) ---
     precalc_len: int = 12          # PRECALC_INTERVAL_LENGTH (align.h:31);
                                    # parameterized here so tests can exercise
                                    # the -P path with small tables

@@ -3,7 +3,7 @@
 `align_reads_gold` runs the full reference-semantics pipeline on the host
 (align_reads + align_reads_inexact, align.c:40-87 / inexact_match.c:25-89);
 the device pipeline in bwbble_tpu.engine.pipeline produces identical results
-with the heavy loops on TPU and falls back to these functions per read on
+with the heavy loops on the device and falls back to these functions per read on
 capacity overflow.
 """
 
@@ -105,7 +105,8 @@ def alns_to_sam(idx: FMIndex, ann: Annotations, reads: Reads,
 
     `per_read_alns` entries must carry disk-order paths (as returned by
     formats.aln.read_aln_file).  `sa_resolver(rows)->positions` defaults to
-    the host gold resolver; the device pipeline passes a batched TPU kernel.
+    the host gold resolver; `bwbble aln2sam` passes the batched device
+    resolver (cli.device_sa_resolver).
     """
     hits = [pick_hits(a) for a in per_read_alns]
     mapped = [k for k, h in enumerate(hits) if h.aln_type != 0]

@@ -2,7 +2,7 @@
 
 The reference enumerates all 4^12 12-mers and exact-matches each from
 scratch (precalc_sa_intervals, align.c:200-224) — 12 full backward-search
-steps per entry.  The TPU build exploits the shared suffix structure
+steps per entry.  The device build exploits the shared suffix structure
 instead: level k holds the interval lists of all 4^k suffixes, and level
 k+1 extends level k by one prepended base, so each entry costs ONE batched
 expansion step (22.4M total steps vs 201M), all on-device via

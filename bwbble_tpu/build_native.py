@@ -1,10 +1,27 @@
-"""Build the native C++ runtime: `python -m bwbble_tpu.build_native`."""
+"""Build the native C++ runtime: `python -m bwbble_tpu.build_native`.
+
+Outputs land in native/build/ (gitignored).  Each file is compiled under a
+temporary name and moved into place with os.replace, so a concurrent reader
+never loads a half-written library."""
 
 from __future__ import annotations
 
 import os
 import subprocess
 import sys
+
+
+def _compile(cmd_head: list[str], out: str, verbose: bool) -> None:
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = [*cmd_head, "-o", tmp]
+    if verbose:
+        print(" ".join(cmd))
+    try:
+        subprocess.run(cmd, check=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def build(verbose: bool = True) -> str:
@@ -15,23 +32,19 @@ def build(verbose: bool = True) -> str:
 
     src = os.path.join(root, "native", "bwbble_native.cpp")
     out = os.path.join(out_dir, "libbwbble_native.so")
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
-           src, "-o", out]
-    if verbose:
-        print(" ".join(cmd))
-    subprocess.run(cmd, check=True)
+    _compile(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+              "-march=native", src], out, verbose)
 
     # mg-ref toolchain: one multi-call binary + the three tool names
-    mgref_src = os.path.join(root, "native", "mgref.cpp")
     mgref = os.path.join(out_dir, "mgref")
-    cmd = ["g++", "-O3", "-std=c++17", mgref_src, "-o", mgref]
-    if verbose:
-        print(" ".join(cmd))
-    subprocess.run(cmd, check=True)
+    _compile(["g++", "-O3", "-std=c++17",
+              os.path.join(root, "native", "mgref.cpp")], mgref, verbose)
     for tool in ("data_prep", "comb", "sam_pad"):
         link = os.path.join(out_dir, tool)
-        if not os.path.exists(link):
-            os.symlink("mgref", link)
+        if not os.path.lexists(link):
+            tmp = f"{link}.tmp{os.getpid()}"
+            os.symlink("mgref", tmp)
+            os.replace(tmp, link)
     return out
 
 

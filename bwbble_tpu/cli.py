@@ -3,7 +3,7 @@
 Reproduces the reference CLI surface (mg-aligner/main.c:72-160): subcommands
 `index`, `align`, `fasta2ref`, `aln2sam` with the same single-letter flags and
 positional arguments, and the same derived file names (`<fasta>.{ref,ann,bwt,
-pre}`).  TPU-specific extensions are long options only (--engine, --batch),
+pre}`).  Device-engine extensions are long options only (--engine, --batch),
 so every reference invocation works verbatim.
 
 Run as `python -m bwbble_tpu ...` or via the `bwbble` wrapper script.
@@ -19,20 +19,22 @@ import time
 import numpy as np
 
 
-def _enable_compilation_cache() -> None:
-    """Persistent XLA/Mosaic compilation cache: a cold `bwbble align` pays
-    minutes of kernel compilation otherwise.  Validated for numeric parity
-    on the TPU backend (round 5); BWBBLE_NO_COMPCACHE=1 opts out."""
-    if int(os.environ.get("BWBBLE_NO_COMPCACHE", "0")):
-        return
-    try:
-        import jax
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get("BWBBLE_COMPCACHE_DIR",
-                           os.path.expanduser("~/.cache/bwbble_tpu/jax")))
-    except Exception:
-        pass
+COMPILATION_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def enable_compilation_cache() -> str:
+    """Persistent XLA compilation cache (a cold `bwbble align` otherwise
+    compiles every engine shape again); returns the directory in effect.
+    JAX_COMPILATION_CACHE_DIR, when set, is read by JAX itself and never
+    overridden; otherwise the cache lives at one fixed path inside the
+    checkout — the path is part of the cache key, so it must not move."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+    jax.config.update("jax_compilation_cache_dir", COMPILATION_CACHE)
+    return COMPILATION_CACHE
 
 
 def _usage() -> int:
@@ -99,9 +101,10 @@ def cmd_fasta2ref(argv: list[str]) -> int:
     return 0
 
 
-def cmd_align(argv: list[str]) -> int:
+def cmd_align(argv: list[str], stats: dict | None = None) -> int:
+    """`bwbble align`.  In-process callers may pass `stats` to receive the
+    device engine's counters (align_reads_device)."""
     from bwbble_tpu.align.params import AlnParams
-    from bwbble_tpu.align.pipeline import align_reads_gold
     from bwbble_tpu.formats.aln import write_aln_file
     from bwbble_tpu.formats.fastq import read_fastq
     from bwbble_tpu.index.fmindex import FMIndex
@@ -198,7 +201,12 @@ def cmd_align(argv: list[str]) -> int:
 
     t = time.time()
     if engine == "gold":
-        alns = align_reads_gold(idx, reads, params, precalc=precalc)
+        # -t spreads reads over worker processes (the reference's OpenMP
+        # read loop, inexact_match.c:92-168)
+        from bwbble_tpu.engine.pipeline import gold_fallback_many
+        got = gold_fallback_many(idx, reads, list(range(reads.count)),
+                                 params, precalc, int(params.n_threads))
+        alns = [got[i] for i in range(reads.count)]
     else:
         from bwbble_tpu.engine.device_index import from_fmindex
         from bwbble_tpu.engine.inexact import EngineConfig
@@ -214,7 +222,7 @@ def cmd_align(argv: list[str]) -> int:
             mesh = make_mesh(parts[0], parts[1] if len(parts) > 1 else 1)
         alns = align_reads_device(idx, from_fmindex(idx), reads, params,
                                   cfg, precalc=precalc, queued=queued,
-                                  mesh=mesh)
+                                  mesh=mesh, stats=stats)
     print(f"Total read alignment time: {time.time() - t:.2f} sec")
     if dist_spec is not None:
         from bwbble_tpu.formats.aln import encode_alns
@@ -255,35 +263,36 @@ def cmd_aln2sam(argv: list[str]) -> int:
     per_read = read_aln_file(alnf)
     # batched device SA resolution (lockstep invPsi walks,
     # engine/rank.py:sa_resolve; reference hot path bwt.c:320-329): the
-    # host per-row loop is O(reads x 32 rank queries) in Python — fine at
-    # 16K reads, wrong at 10^8.  Falls back to the host loop off-device.
-    sa_resolver = None
-    try:
-        import jax as _jax
-        if _jax.default_backend() == "tpu" and idx.length < 2**31:
-            from bwbble_tpu.engine.device_index import from_fmindex
-            from bwbble_tpu.engine.rank import sa_resolve
-            import jax.numpy as _jnp
-            didx = from_fmindex(idx)
-
-            def sa_resolver(rows):
-                import numpy as _np
-                rows = _np.asarray(rows, dtype=_np.int64)
-                n = rows.shape[0]
-                if n == 0:
-                    return rows
-                npad = max(256, 1 << (n - 1).bit_length())
-                padded = _np.zeros(npad, dtype=_np.int32)
-                padded[:n] = rows
-                out = _np.asarray(sa_resolve(didx, _jnp.asarray(padded)))
-                return out[:n].astype(_np.int64)
-    except Exception:
-        sa_resolver = None
+    # host per-row loop is O(reads x 32 rank queries) in Python.  Indexes
+    # of 2^31 positions or more need the int64 device layout (x64 mode),
+    # so they resolve on the host.
+    sa_resolver = device_sa_resolver(idx) if idx.length < 2**31 else None
     sam = alns_to_sam(idx, ann, reads, per_read, max_diff=max_diff,
                       sa_resolver=sa_resolver)
     with open(samf, "w") as f:
         f.write(sam)
     return 0
+
+
+def device_sa_resolver(idx):
+    """rows -> SA positions on the device (batched, padded to a power of
+    two so repeated calls share compiled shapes)."""
+    import jax.numpy as jnp
+    from bwbble_tpu.engine.device_index import from_fmindex
+    from bwbble_tpu.engine.rank import sa_resolve
+    didx = from_fmindex(idx)
+
+    def resolve(rows):
+        rows = np.asarray(rows, dtype=np.int64)
+        n = rows.shape[0]
+        if n == 0:
+            return rows
+        padded = np.zeros(max(256, 1 << (n - 1).bit_length()), np.int32)
+        padded[:n] = rows
+        out = np.asarray(sa_resolve(didx, jnp.asarray(padded)))
+        return out[:n].astype(np.int64)
+
+    return resolve
 
 
 def cmd_eval(argv: list[str]) -> int:
@@ -323,7 +332,7 @@ def main(argv: list[str] | None = None) -> int:
         return _usage()
     cmd, rest = argv[0], argv[1:]
     if cmd in ("align", "aln2sam"):
-        _enable_compilation_cache()
+        enable_compilation_cache()
     if cmd == "index":
         return cmd_index(rest)
     if cmd == "align":

@@ -1,2 +1,2 @@
-"""TPU device engines (JAX/XLA/Pallas): batched FM-index ranks, lockstep
+"""Device engines (JAX/XLA): batched FM-index ranks, lockstep
 exact/inexact backward search, suffix-array resolution."""

@@ -1,13 +1,9 @@
 """Device-resident FM-index layout.
 
-Redesigned for TPU memory access (not a port of the reference's packed-word
-layout): the BWT lives in HBM as one int8 code per position, tiled into
-rows of OCC_INTERVAL (=128, conveniently the TPU lane width) so one gather
-fetches the checkpoint-aligned block a rank query needs; occurrence
-checkpoints are an int32 [num_blocks, 16] plane gathered alongside.
-
-A bit-plane layout (4 uint32 words x 4 planes per block + popcount) is
-provided for the Pallas fast path; both layouts carry identical information.
+Redesigned for batched device rank queries (not a port of the reference's
+packed-word layout): the BWT lives in device memory as bit planes, one row
+per OCC_INTERVAL (=128) positions, fused with that block's occurrence
+checkpoints, so one row gather fetches everything a rank query needs.
 
 Index arithmetic is dtype-parameterized (the reference is built on
 bwtint_t = uint64, common.h:6):
@@ -16,12 +12,11 @@ bwtint_t = uint64, common.h:6):
 - int64 mode (use_int64, or automatic at length >= 2^31): checkpoint counts
   split into lo/hi int32 columns (rows widen to 192 bytes, still ONE row
   gather per rank query); C/SA/positions and all interval math run in
-  int64.  Requires JAX x64 (JAX_ENABLE_X64=1).  TPUs emulate int64 with
-  int32 pairs, so the int32 fast path remains the default.
+  int64.  Requires JAX x64 (JAX_ENABLE_X64=1); int32 stays the default.
 
-Larger-than-HBM references are additionally handled by range-sharding the
-index across devices (see bwbble_tpu.parallel), keeping per-shard offsets
-small.
+Larger-than-device-memory references are additionally handled by
+range-sharding the index across devices (see bwbble_tpu.parallel), keeping
+per-shard offsets small.
 """
 
 from __future__ import annotations
@@ -44,13 +39,13 @@ BLK = C.OCC_INTERVAL  # 128 positions per block
          meta_fields=["tp_axis"])
 @dataclasses.dataclass
 class DeviceIndex:
-    # One fused 128-byte row per BWT block, so a rank query is a single
-    # row gather (TPU gathers are latency-bound; splitting planes and
-    # checkpoints doubled the gather count for nothing):
+    # One fused 128-byte row per BWT block (one L2 line on current GPUs),
+    # so a rank query is a single row gather; splitting planes and
+    # checkpoints would double the gather count for nothing:
     #   cols 0..15  — bit planes: table[k, 4*t + w] holds bit t of the codes
     #                 at positions w*32 .. w*32+31 of block k (LSB-first).
     #                 XNOR-AND + population_count answers a 16-char rank with
-    #                 64 popcounts (~10x less VPU work than an int8 one-hot
+    #                 64 popcounts (far less work than an int8 one-hot
     #                 scan, 0.5 B/position).
     #   cols 16..31 — occurrence-checkpoint counts for the 16 symbols
     #                  (int64 mode: low 32 bits; cols 32..47 hold the high
@@ -62,8 +57,8 @@ class DeviceIndex:
     sa0: jax.Array         # int32|int64 scalar: sentinel row
     # When set (inside shard_map), `table` holds only this device's
     # contiguous block range; rank gathers mask misses and psum over this
-    # mesh axis (the TP analog: index range-sharded across chips, rank
-    # queries answered by one all-reduce over ICI).  Checkpoint counts are
+    # mesh axis (index range-sharded across devices, rank queries
+    # answered by one all-reduce).  Checkpoint counts are
     # global cumulative ranks, so shards answer directly.
     tp_axis: str | None = None
 
@@ -81,9 +76,9 @@ def build_planes(blocks: np.ndarray) -> np.ndarray:
     """Pack int8 code blocks [NB, 128] into bit planes [NB, 16] int32.
 
     packbits(bitorder='little') + a <u4 view puts bit position p%32 of
-    word p//32 exactly where the kernel expects it; the broadcasted
-    multiply-sum formulation this replaces was ~600x slower (~12 min at
-    chr21 scale — it dominated device-index construction)."""
+    word p//32 exactly where the rank code expects it; a broadcasted
+    multiply-sum formulation was orders of magnitude slower and dominated
+    device-index construction."""
     nb = blocks.shape[0]
     u = blocks.view(np.uint8)
     planes = np.zeros((nb, 4, 4), dtype=np.uint32)        # [NB, bit t, word w]

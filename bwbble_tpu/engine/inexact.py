@@ -1,9 +1,10 @@
-"""Lockstep inexact search engine (the reference's core algorithm on TPU).
+"""Lockstep inexact search engine (the reference's core algorithm on the
+device).
 
 Redesign of the score-bucketed best-first DFS (inexact_match,
-inexact_match.c:256-506) for SIMD execution over a read batch.  The data
-structures are chosen so the hot loop contains NO scatter ops (XLA scatters
-serialize on TPU) and no full-arena scans:
+inexact_match.c:256-506) for SIMD execution over a read batch, written as a
+plain `lax.while_loop` that XLA compiles.  The hot loop contains no scatter
+into per-lane state and no full-arena scans:
 
 - **Dense frames.**  Each global iteration reserves one frame of NSLOT
   candidate rows in an append-only arena ([B, CAP] struct-of-arrays); slot s
@@ -23,10 +24,7 @@ serialize on TPU) and no full-arena scans:
   instead of stored.  Nodes live in 512-byte frame ROWS (arena
   [F, B, 128]: 23 slots x 4 words + parent id per lane-frame), so a pop is
   one row gather on the [F*B, 128] view + a dense slot select, and a frame
-  write is one contiguous update slice.  Row gathers measure ~0.3 ns/row vs
-  ~16 ns/element for per-lane element gathers — the round-1 struct-of-
-  arrays layout spent half the loop popping nodes
-  (benchmarks/trace_search.py).
+  write is one contiguous update slice.
 - **Continuous batching (queue mode).**  Lockstep cost is the max over
   lanes, so fixed batches waste most lane-iterations on finished reads.
   With a read queue, a lane that finishes flushes its outputs to per-read
@@ -91,19 +89,6 @@ class EngineConfig:
     pathcap: int = 0          # reported path length bound (0 => Lmax + 32)
     flush: int = 64           # queue mode: max reads flushed per iteration
     xsteps: int = 1           # exact-completion chars advanced per iteration
-    # resident kernel: exact-completion interval-list capacity (chunked,
-    # kx slots ranked per wave); 0 = legacy whole-list-in-kx-slots path
-    xcap: int = 0
-    # fixed-batch resident kernel: exit the launch once fewer than this
-    # many lanes are alive (0 = run to completion).  Straggler lanes time
-    # out -> overflow -> the escalation ladder retries them at a narrower
-    # tier, instead of the whole batch paying near-empty waves; results
-    # are identical because retried reads restart from scratch either way
-    exit_alive: int = 0
-    # loop-body backend: "auto" = the Pallas mega-kernel (engine/kernel.py)
-    # on TPU for the configs it covers (fixed batch, int32, multiref, no
-    # seeds), XLA otherwise; "xla" / "pallas" force one path
-    backend: str = "auto"
 
 
 def _int(p, name):
@@ -111,8 +96,7 @@ def _int(p, name):
 
 
 def _pick(arr: jax.Array, idx: jax.Array) -> jax.Array:
-    """arr[b, idx[b]] for small trailing dims via one-hot reduce (per-element
-    gathers serialize on TPU)."""
+    """arr[b, idx[b]] for small trailing dims via a one-hot reduce."""
     T = arr.shape[1]
     cols = jnp.arange(T, dtype=jnp.int32)[None, :]
     # pin the accumulator dtype: under JAX x64 an int32 sum promotes to
@@ -185,8 +169,8 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
     # cost it no budget and clobber none of its history.  (Round 3/4
     # counted GLOBAL any-pop waves instead: a read inside a long chunked
     # exact completion lost its arena history after NFRAME global waves,
-    # which made ring mode lose to fixed batches on exact-heavy worlds —
-    # STATUS r3 §4.)  Safety: a lane is flagged overflow once its age
+    # which made ring mode lose to fixed batches on exact-heavy worlds.)
+    # Safety: a lane is flagged overflow once its age
     # (own pops) reaches NFRAME, right before its oldest frame could be
     # reused; finished lanes' frames stay intact until refill because a
     # finished lane's pf is frozen.
@@ -234,9 +218,8 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
 
     def _node_read4(st_, node):
         """(L, U, m1, m2) of a node per lane: one 512-byte frame-ROW gather
-        (row gathers run ~50x faster than per-lane element gathers on TPU;
-        benchmarks/trace_search.py) plus a dense slot select; ids < NROOT
-        come from the packed root rows."""
+        plus a dense slot select; ids < NROOT come from the packed root
+        rows."""
         nn = jnp.maximum(node - NROOT, 0)
         f = nn // NSLOT
         s = nn - f * NSLOT
@@ -311,9 +294,7 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
     # Node values live in frame rows: aN[f, b, 4s..4s+3] is slot s of frame
     # f on lane b; col NSLOT*4 holds the frame's parent node id.  A pop is
     # then one row gather on the [F*B, 128] view; a frame write is one
-    # contiguous [1, B, 128] update slice.  (Per-lane element gathers cost
-    # ~16 ns/element vs ~0.3 ns/row for row gathers — the round-1 layout
-    # spent half the loop popping nodes.)  Ring mode needs no trash row
+    # contiguous [1, B, 128] update slice.  Ring mode needs no trash row
     # (writes always land in range).
     NAREN = NFRAME if RING else NFRAME + 1
     aN = jnp.zeros((NAREN, B, ROWW), jnp.int32)
@@ -471,8 +452,9 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
         v2 = v_i32.reshape(v_i32.shape[0], -1)
         hi = (v2 >> 16).astype(jnp.float32)
         lo = (v2 & 0xFFFF).astype(jnp.float32)
-        # HIGHEST precision: TPU matmuls default to bf16 passes, which would
-        # round the 16-bit halves
+        # HIGHEST precision is required: a default-precision float32
+        # product may run in TF32 (or bf16 passes), which would round the
+        # 16-bit halves
         mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
         out = (mm(a_f32, hi).astype(jnp.int32) << 16) \
             + mm(a_f32, lo).astype(jnp.int32)
@@ -482,8 +464,7 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
         """Flush up to FL finished lanes to the per-read slabs and hand them
         the next reads from the global counter.  All lane-state updates are
         one-hot matmul expansions + selects and the flush is TWO packed
-        scatters — XLA scatters serialize on TPU, so none target per-lane
-        state."""
+        scatters into the per-read slabs; none target per-lane state."""
         st_ = dict(st_)
         fin = (st_["mode"] == MODE_DONE) & ~st_["flushed"]
         rank = jnp.cumsum(fin.astype(jnp.int32)) - 1          # [B]
@@ -910,9 +891,8 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
             urgent = jnp.any(fin & (age >= urg))
             # gate at FL finished lanes (full flush batches): with the
             # per-lane pop clock a finished lane's frames are frozen until
-            # refill, so waiting costs only idle lanes — and idle lanes
-            # are near-free in the resident kernel's per-lane DMA guards.
-            # cfg.flush is therefore the switch-amortization knob.
+            # refill, so waiting costs only idle lanes.  cfg.flush is
+            # therefore the switch-amortization knob.
             do_sw = (nfin >= FL) | ((nfin > 0) & drain) | urgent
             st_ = jax.lax.cond(do_sw, switch_step, lambda s: dict(s), st_)
         any_exact = jnp.any(st_["mode"] == MODE_EXACT)
@@ -931,34 +911,7 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
         st_["iters"] = st_["iters"] + 1
         return st_
 
-    pallas_ok = (not X64
-                 and cfg.xsteps == 1 and didx.tp_axis is None
-                 and B % 128 == 0)
-    use_pallas = (cfg.backend in ("pallas", "resident")
-                  or (cfg.backend == "auto" and pallas_ok
-                      and jax.default_backend() == "tpu"))
-    if use_pallas:
-        if not pallas_ok:
-            raise NotImplementedError(
-                "backend='pallas' covers int32 searches "
-                "(B a multiple of 128, xsteps == 1, no tp sharding)")
-        from bwbble_tpu.engine import kernel as _pk
-        # the resident kernel covers NROOT == 1; seeded searches (-P,
-        # NROOT > 1) run the per-iteration kernel instead of raising
-        if cfg.backend == "resident" and not QUEUED and NROOT == 1:
-            st = _pk.run_loop_resident(didx, state, params, cfg, B, Lmax,
-                                       NROOT)
-        elif cfg.backend == "resident" and QUEUED and NROOT == 1:
-            st = _pk.run_loop_resident_queued(
-                didx, state, params, cfg, B, Lmax, NROOT,
-                queued_ctx=dict(switch_step=switch_step, NR=NR, FL=FL))
-        else:
-            qctx = dict(switch_step=switch_step, NR=NR, FL=FL) if QUEUED \
-                else None
-            st = _pk.run_loop(didx, state, params, cfg, B, Lmax, NROOT,
-                              queued_ctx=qctx)
-    else:
-        st = jax.lax.while_loop(cond, body, state)
+    st = jax.lax.while_loop(cond, body, state)
     timeout = st["mode"] != MODE_DONE
 
     if QUEUED:
@@ -977,11 +930,6 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
             overflow=(qm[:, 1] > 0) | (qm[:, 0] < 0),
             iters=st["iters"],
             n_pushed=st["n_pushed"],
-            # roofline counters (resident backend; absent on the XLA body)
-            dma_pop=st.get("dma_pop", jnp.int32(0)),
-            dma_fat=st.get("dma_fat", jnp.int32(0)),
-            dma_wr=st.get("dma_wr", jnp.int32(0)),
-            n_work=st.get("n_work", jnp.zeros((B,), jnp.int32)),
             # reverse-order state walks, filled at flush time (the ring
             # arena reuses frame rows, so no post-loop walk is possible).
             # 2-bit packed (states are M/I/D) — paths dominate the
@@ -1003,14 +951,6 @@ def _search(didx: DeviceIndex, rc_all, lengths_all, D_all, Ds_all,
         overflow=st["overflow"] | timeout,
         iters=st["iters"],
         n_pushed=st["n_pushed"],
-        # per-lane diagnostics (Pallas backends; zeros on the XLA body):
-        # n_work = serial work units (pops + exact chars), ovwhy = overflow
-        # reason bits (1 kx, 2 acap, 4 path, 8 frames)
-        n_work=st.get("n_work", jnp.zeros((B,), jnp.int32)),
-        ovwhy=st.get("ovwhy", jnp.zeros((B,), jnp.int32)),
-        dma_pop=st.get("dma_pop", jnp.int32(0)),
-        dma_fat=st.get("dma_fat", jnp.int32(0)),
-        dma_wr=st.get("dma_wr", jnp.int32(0)),
         # frame rows stay device-resident; paths of reported alignments are
         # reconstructed afterwards over a host-compacted node list
         # (walk_paths) — states derive statically from a node's frame slot.

@@ -49,8 +49,8 @@ def expand_step(didx: DeviceIndex, Ls: jax.Array, Us: jax.Array,
     """
     B, K = Ls.shape
     # dead slots (>= cnt) query block 0: their outputs are masked out below,
-    # and collapsing their row gathers onto one hot row is much cheaper than
-    # random lookups (TPU gathers are per-row latency-bound)
+    # and collapsing their row gathers onto one hot row is cheaper than
+    # random lookups
     slot_live = jnp.arange(K, dtype=jnp.int32)[None, :] < cnt[:, None]
     qL = jnp.where(slot_live, Ls - 1, 0).reshape(-1)
     qU = jnp.where(slot_live, Us, 0).reshape(-1)
@@ -59,9 +59,8 @@ def expand_step(didx: DeviceIndex, Ls: jax.Array, Us: jax.Array,
     occU = occU.reshape(B, K, 16)
 
     # select the 7 candidate symbols per lane: a static column gather for
-    # all 4 possible bases, then a 4-way select on c.  (The previous einsum
-    # formulation lowered to a "convolution fusion" costing ~140us per call
-    # at B=8192; static slicing + a [B,K,4,7] select is plain VPU work.)
+    # all 4 possible bases, then a 4-way select on c (static slicing + a
+    # [B,K,4,7] select; an einsum formulation lowered to a convolution).
     # cand[b,k,s] = occ[b,k,base(c[b],s)]
     c_safe = jnp.clip(c, 0, 3)
     idx = jnp.asarray(_NUCL)                                # [4, 7] static
@@ -91,10 +90,11 @@ def merge_compact(candL: jax.Array, candU: jax.Array, valid: jax.Array,
     """Order-preserving compaction of valid candidates with adjoining-interval
     merge, returning at most K merged intervals per lane.
 
-    Scatter-free (XLA scatters/segment ops serialize on TPU): the previous
-    valid candidate's U comes from a cummax-indexed gather, merge-chain heads
-    are flagged in place, and the K outputs are one-hot reductions over the
-    M candidate slots — all dense VPU work.
+    Scatter-free: the previous valid candidate's U comes from a
+    cummax-indexed gather, merge-chain heads are flagged in place, and the
+    K outputs are one-hot reductions over the M candidate slots — all dense
+    elementwise work.  (Whether plain scatters win on the GPU is ROADMAP
+    C2.)
     """
     B, M = candL.shape
     # U of the previous valid slot: a "carry last valid value" scan

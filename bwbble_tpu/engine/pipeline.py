@@ -1,4 +1,4 @@
-"""Device alignment pipeline: batches reads onto the TPU engines and falls
+"""Device alignment pipeline: batches reads onto the device engines and falls
 back to the host gold engine per read on any capacity overflow, so output is
 byte-identical to the reference at every capacity setting.
 
@@ -20,7 +20,6 @@ import os
 import sys
 import time as _tm
 from collections import deque
-from functools import partial
 
 # BWBBLE_TRACE=1: live per-phase/per-launch timings on stderr
 _TRACE = bool(int(os.environ.get("BWBBLE_TRACE", "0")))
@@ -94,9 +93,8 @@ def probe_native_d(didx: DeviceIndex, reads: Reads, params: AlnParams,
     intervals on EVERY read, so a tiny first pass is pure waste — probe
     one chunk at k_fast and escalate the DEFAULT width if it overflows.
     When even d_cap overflows on >90% of the probe chunk (hundreds of
-    disjoint intervals per read), the whole K=d_cap device pass (~1 s per
-    1024-read chunk) would be discarded wholesale for the native scanner,
-    so skip it up front."""
+    disjoint intervals per read), the whole K=d_cap device pass would be
+    discarded wholesale for the native scanner, so skip it up front."""
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     K1 = min(k_fast, d_cap) if params.is_multiref else d_cap
@@ -256,11 +254,15 @@ def native_scan_chunks(host_idx: FMIndex, reads: Reads, params: AlnParams,
     The difficulty proxy comes from the EXACT scanned widths — a clipped
     device pass (K=8) was tried as the routing signal and underestimated
     the hardest reads badly enough that one mis-routed read serialized a
-    whole primary-tier launch for 325 s (exact-completion chars share the
-    lockstep iteration clock with pops)."""
+    whole primary-tier launch (exact-completion chars share the lockstep
+    iteration clock with pops)."""
     from bwbble_tpu import constants as CN
     from bwbble_tpu.native import get_native
     nat = get_native()
+    if nat is None or not getattr(nat, "_has_calc_d", False):
+        raise RuntimeError(
+            "native_scan_chunks needs the native D-bound scanner: build it "
+            "with `python -m bwbble_tpu.build_native`")
     NR = reads.count
     Lmax = max(reads.max_len, 1)
     seed_len = int(params.seed_length)
@@ -386,9 +388,8 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     device tiers (a forked worker pool chews overflowing reads while the
     host thread waits on device launches).  None => auto: on when the
     native gold engine is available and the read set spans multiple
-    batches.  Measured on the chr21 world the native gold engine runs
-    1-40 ms/read across the whole difficulty spectrum, so overlapping it
-    with device compute hides most of the tail's cost.
+    batches; overlapping it with device compute hides most of the tail's
+    cost.
     """
     cfg = cfg or EngineConfig()
     if not device_params_ok(params, max(reads.max_len, 1)):
@@ -418,8 +419,6 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
     root_plen = int(params.precalc_len) if precalc is not None else 0
     counters = {"fallback_reads": 0, "retried_reads": 0}
     results: list = [None] * reads.count
-    fail_why: dict[int, int] = {}   # overflow reason bits per failed read
-    work_seen: dict[int, int] = {}  # per-read n_work at failure (tier cap)
 
     def run_tier(sel_all: np.ndarray | None, tier_cfg: EngineConfig,
                  tier_B: int, on_failed=None, sel_gen=None) -> list[int]:
@@ -438,8 +437,8 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             if nb < tier_B:
                 # pad with copies of the first read: all batches share one
                 # compiled shape.  collect() iterates b < nb only, so a
-                # padded duplicate lane's results/ovwhy/n_work are never
-                # read and cannot overwrite the real lane's entries.
+                # padded duplicate lane's results are never read and
+                # cannot overwrite the real lane's entries.
                 sel = np.concatenate(
                     [sel, np.full(tier_B - nb, sel[0], dtype=sel.dtype)])
             rc = np.zeros((tier_B, max(reads.max_len, 1)), dtype=np.int8)
@@ -476,27 +475,11 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
 
         def collect(h) -> None:
             res = h["res"]
-            # roofline accounting (resident backend): 512-byte HBM rows
-            # moved by the kernel's own DMA (pop rows + rank fat rows +
-            # frame writes) and serial work units executed
-            for ks, kd in (("dma_pop", "dma_pop_rows"),
-                           ("dma_fat", "dma_fat_rows"),
-                           ("dma_wr", "dma_wr_rows")):
-                if ks in res:
-                    counters[kd] = (counters.get(kd, 0)
-                                    + int(np.asarray(res[ks])))
-            if "iters" in res:
-                # mesh results broadcast iters per lane; max = wall clock
-                counters["waves"] = (counters.get("waves", 0)
-                                     + int(np.asarray(res["iters"]).max()))
-            if "n_work" in res:
-                counters["work_units"] = (counters.get("work_units", 0)
-                                          + int(np.asarray(res["n_work"])
-                                                .sum()))
+            # mesh results broadcast iters per lane; max = wall clock
+            counters["waves"] = (counters.get("waves", 0)
+                                 + int(np.asarray(res["iters"]).max()))
             n_alns = np.asarray(res["n_alns"])
             overflow = np.asarray(res["overflow"]) | h["seed_over"]
-            why = (np.asarray(res["ovwhy"]) if "ovwhy" in res
-                   else np.zeros(h["nb"], np.int32))
             o = {k: np.asarray(v) for k, v in res.items()
                  if k.startswith("o_")}
 
@@ -512,7 +495,12 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                     nodes_l.append(int(o["o_node"][b, k]))
                     keys.append((b, k))
             paths_rev = {}
-            if keys:
+            if "paths" in res:
+                # mesh launches walk their paths where each lane's arena
+                # lives (parallel/shard.py)
+                pr = unpack_paths(np.asarray(res["paths"]), h["pathcap"])
+                paths_rev = {key: pr[key] for key in keys}
+            elif keys:
                 W = len(keys)
                 Wp = max(256, 1 << (W - 1).bit_length())
                 lanes_a = np.zeros(Wp, dtype=np.int32)
@@ -527,24 +515,11 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                     paths_rev[key] = pr[w]
 
             sel = h["sel"]
-            nwk = (np.asarray(res["n_work"]) if "n_work" in res
-                   else np.zeros(h["nb"], np.int32))
-            if _TRACE:
-                live = nwk[:h["nb"]]
-                q = np.percentile(live, [50, 90, 99]).astype(int) \
-                    if live.size else [0, 0, 0]
-                wh = why[:h["nb"]][np.asarray(overflow[:h["nb"]], bool)]
-                hist = {int(b): int((wh & b != 0).sum()) for b in (1, 2, 4, 8)}
-                _tr(f"  launch n_work p50/p90/p99={list(q)} "
-                    f"max={int(live.max()) if live.size else 0} "
-                    f"ovwhy_hist={hist}")
             launch_failed: list[int] = []
             for b in range(h["nb"]):
                 orig = int(sel[b])
                 if overflow[b]:
                     launch_failed.append(orig)
-                    fail_why[orig] = int(why[b]) if b < why.shape[0] else 0
-                    work_seen[orig] = int(nwk[b]) if b < nwk.shape[0] else 0
                     continue
                 alns = []
                 for k in range(int(n_alns[b])):
@@ -597,9 +572,6 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             collect(pending.popleft())
         return failed
 
-    # one forward D pass for every read: search bounds, difficulty
-    # ordering, and K-escalation flags (VERDICT r1: calc_d at K=16 per
-    # batch was the single biggest gather volume in the pipeline)
     # Overlapped gold fallback: fork a host worker pool that gold-aligns
     # overflowing reads WHILE the device runs (the host thread is mostly
     # blocked on device results, so the worker gets the core).  The pool
@@ -617,53 +589,15 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         try:
             pool = _GoldPool(idx, reads, params, precalc,
                              n_workers=max(1, int(params.n_threads)))
-        except Exception:
+        except (OSError, ValueError):     # no fork / no processes
             pool = None
 
-    # The resident multi-pop kernel (engine/kernel.py) runs the whole
-    # search loop inside one pallas_call (~76 ns/lane-iteration at B=1024
-    # vs ~0.9 us/pop for the native gold engine on one core), so when it
-    # covers the config the device owns the heavy tail: deep narrow-lane
-    # resident tiers replace most host fallback, and only reads beyond
-    # the deepest tier's frame budget go to gold.
-    import jax as _jax
-    # dp-only meshes (tp == 1) run the resident kernel PER SHARD inside
-    # shard_map — the search needs no cross-chip communication on the dp
-    # axis (inexact_match.c:92-168), so each chip owns its read slice with
-    # the full single-chip engine.  tp > 1 range-shards the index (rank
-    # queries psum over ICI), which only the XLA body implements.
-    dp_shards = int(mesh.shape["dp"]) if mesh is not None else 1
-    tp_shards = int(mesh.shape["tp"]) if mesh is not None else 1
-    B_shard = B // dp_shards
-    resident_ok = (tp_shards == 1 and precalc is None
-                   and str(didx.idt) != "int64"
-                   and cfg.xsteps == 1          # mirrors _search's pallas_ok
-                   and B_shard % 128 == 0)
-    resident_on = resident_ok and (
-        cfg.backend == "resident"               # forced (e.g. mesh dryrun)
-        or (cfg.backend != "xla" and _jax.default_backend() == "tpu"
-            and B_shard <= 1024))
-    if resident_on:
-        # xcap=128: chunked exact completion — covers every interval-list
-        # width observed on the chr21 worlds (p99 max ~85, never >256),
-        # so kx-overflow fallback disappears (kx becomes slots-per-wave).
-        # Single-genome (-S) scans keep one interval (width <= 1 <= kx),
-        # so the legacy whole-list path is the cheaper fit there.
-        cfg = dataclasses.replace(cfg, backend="resident",
-                                  xcap=128 if params.is_multiref else 0)
-
     # Pre-route the per-chunk hardest quantile straight to gold as each D
-    # chunk lands (keeps the host pool busy during the D phase).  With a
-    # Pallas loop body (resident or per-iteration) the device owns the
-    # work and the host's economic share is small; the 3/8 split applies
-    # only to the pure-XLA body (non-TPU / non-128-multiple configs).
-    pallas_body = (cfg.backend != "xla"
-                   and str(didx.idt) != "int64" and cfg.xsteps == 1
-                   and _jax.default_backend() == "tpu" and B % 128 == 0)
+    # chunk lands (keeps the host pool busy during the D phase).  The 3/8
+    # share is carried over untuned; deriving it from the fallback target
+    # on the GPU is ROADMAP A2/C5.
     routed = np.zeros(reads.count, dtype=bool)
-    route_frac = 0.0
-    if pool is not None and sort_reads:
-        route_frac = 0.025 if (resident_on or pallas_body) else 0.375
+    route_frac = 0.375 if (pool is not None and sort_reads) else 0.0
 
     def _route_chunk(gi: np.ndarray, zc: np.ndarray):
         k = int(gi.size * route_frac)
@@ -694,7 +628,6 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         D_all = np.zeros((reads.count, Lmax_s + 1, 2), dtype=np_dt)
         Ds_all = np.zeros((reads.count, max(seed_len_s, 1) + 1, 2),
                           dtype=np_dt)
-        z_all = np.zeros(reads.count, dtype=np.int64)
         t_scan = [0.0]
 
         def _stream_batches():
@@ -705,7 +638,6 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
                     idx, reads, params, B, np_dt):
                 D_all[gi[0]:gi[-1] + 1] = Dch
                 Ds_all[gi[0]:gi[-1] + 1] = Dsch
-                z_all[gi[0]:gi[-1] + 1] = zc
                 _route_chunk(gi, zc)
                 keep = ~routed[gi]
                 pend_i = np.concatenate([pend_i, gi[keep]])
@@ -727,11 +659,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
 
         try:
             t0s = _time0.time()
-            # with the resident deep tiers available, primary-tier failures
-            # retry on-device (narrow lanes, ~91k-pop frame budget) instead
-            # of streaming to the one-core host pool
-            failed = run_tier(None, cfg, B,
-                              on_failed=None if resident_on else pool.submit,
+            failed = run_tier(None, cfg, B, on_failed=pool.submit,
                               sel_gen=_stream_batches())
             counters["prerouted"] = int(routed.sum())
             counters["streamed"] = True
@@ -739,52 +667,6 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
             counters["tiers"] = [dict(
                 B=B, cap=int(cfg.cap), reads=int(reads.count - routed.sum()),
                 failed=len(set(failed)), sec=round(_time0.time() - t0s, 2))]
-            if resident_on and failed:
-                # xcap-overflow reads (ovwhy bit 1 — none observed on the
-                # chr21 worlds at xcap=128) go to gold; everything else
-                # (frame budget / acap) retries on the deep resident tier,
-                # which raises per-read frames ~16x at constant memory
-                kx_bound = [r for r in set(failed) if fail_why.get(r, 0) & 1]
-                if kx_bound:
-                    pool.submit(sorted(kx_bound))
-                failed = [r for r in set(failed)
-                          if not (fail_why.get(r, 0) & 1)]
-                # the measured-hardest slice (top n_work at the tier cap is
-                # a lower bound on remaining work) goes to the host pool,
-                # which chews it while the deep tier runs; stay inside the
-                # 5% fallback budget overall
-                budget = max(int(0.045 * reads.count) - pool.submitted
-                             - len(kx_bound), 0)
-                hardest = sorted(
-                    failed, key=lambda r: (-z_all[r], -work_seen.get(r, 0)))
-                to_gold = hardest[:min(budget, len(failed) // 4)]
-                if to_gold:
-                    pool.submit(to_gold)
-                failed = hardest[len(to_gold):]
-                cell = max(int(cfg.cap) * B, 1 << 25)
-                for deep_B, deep_kx in ((256, 2),):
-                    if not failed:
-                        break
-                    # lockstep launches pay max-over-lanes iterations:
-                    # order retries by MEASURED work so batches are
-                    # homogeneous (descending: hardest surface first)
-                    sel_d = np.array(failed, dtype=np.int64)
-                    deep_cap = min(cell // deep_B, 4 << 20)
-                    deep_cfg = dataclasses.replace(
-                        cfg, cap=deep_cap, acap=max(cfg.acap, 64),
-                        kx=max(cfg.kx, deep_kx),
-                        max_iters=max(cfg.max_iters, deep_cap // 23 + 1024))
-                    td0 = _time0.time()
-                    counters["retried_reads"] += int(sel_d.size)
-                    failed = run_tier(sel_d, deep_cfg,
-                                      min(deep_B, _pow2_at_least(
-                                          sel_d.size, lo=128)))
-                    counters["tiers"].append(dict(
-                        B=deep_B, cap=int(deep_cap), reads=int(sel_d.size),
-                        failed=len(set(failed)),
-                        sec=round(_time0.time() - td0, 2)))
-                if failed:
-                    pool.submit(sorted(set(failed)))
             # device-search wall time: the tier span minus the host scan
             # that ran interleaved inside it
             counters["t_search"] = round(
@@ -814,19 +696,7 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         z = difficulty_scores(didx, reads, params, D_all=D_all)
         order = order[np.argsort(z[order], kind="stable")]
 
-    pallas_on = (cfg.backend != "xla"
-                 and mesh is None and precalc is None
-                 and str(didx.idt) != "int64"
-                 and cfg.xsteps == 1
-                 and _jax.default_backend() == "tpu")
     if pool is not None:
-        if deep_tiers is None:
-            # resident kernel: deep narrow-lane tiers run ~32 us/iteration
-            # at B=128 (multi-pop, no launch overhead) and beat the native
-            # gold engine on the heavy tail, so they stay ON.  Without it
-            # the tail is serial-iteration-bound on the per-iteration
-            # kernel (~195 ms/read vs gold's ~8 ms) and stays on the host.
-            deep_tiers = resident_on
         if sort_reads:
             order = order[::-1]
         dov_sel = np.flatnonzero(dov_all & ~routed)
@@ -845,39 +715,24 @@ def align_reads_device(idx: FMIndex, didx: DeviceIndex, reads: Reads,
         tiers.append((B, dataclasses.replace(cfg, cap=int(first_cap))))
     tiers.append((B, cfg))
     # Deep narrow-lane tiers raise the per-read frame budget at constant
-    # arena memory.  Their worth depends on the loop-body backend:
-    # - Pallas kernel (TPU): ~0.14 us/lane-iteration at B=256 — an order
-    #   of magnitude below the native gold engine's ~0.9 us/pop, so the
-    #   ladder beats gold on the heavy tail and stays ON (lane counts are
-    #   multiples of 128, the kernel's block size).
-    # - XLA body: >=0.5 us/lane-iteration — measured SLOWER on the heavy
-    #   tail than native gold, so with the native library present hard
-    #   reads go straight to gold; the tiers remain for environments
-    #   without it (they still beat Python gold by ~20x).
+    # arena memory.  With the native gold engine present, hard reads go
+    # straight to gold instead (the tail is serial-iteration-bound on a
+    # lockstep body); the tiers remain for runs without it, where they
+    # beat the Python gold engine.  Whether the ladder pays on the GPU, and
+    # its shape, are untuned carry-overs: ROADMAP A2/C5.
     if deep_tiers is None:
-        # measured on the chr21 world (round 2): the deep tiers burned
-        # 212 s (XLA body) / 154 s (Pallas body) resolving reads that
-        # native gold handles at 1-40 ms each — the tail is serial-
-        # iteration-bound (see above) — so they are only worth it WITHOUT
-        # the native library (they still beat Python gold by ~20x)
         from bwbble_tpu.native import get_native
         _nat = get_native()
         deep_tiers = not (params.is_multiref and _nat is not None
                           and getattr(_nat, "_has_gold", False))
     cell = max(int(cfg.cap) * B, 1 << 25)     # arena rows x lanes budget
-    if resident_on:
-        ladder = ((256, 2),)
-    elif pallas_on:
-        ladder = ((1024, 8), (256, 8), (128, 16))
-    else:
-        ladder = ((1024, 8), (256, 8), (64, 16))
+    ladder = ((1024, 8), (256, 8), (64, 16))
     for deep_B, deep_kx in (ladder if deep_tiers else ()):
         if deep_B < B:
             deep_cap = min(cell // deep_B, 4 << 20)
             tiers.append((deep_B, dataclasses.replace(
                 cfg, cap=deep_cap, acap=max(cfg.acap, 64),
                 kx=max(cfg.kx, deep_kx),
-                exit_alive=0,          # deep tiers must drain their batch
                 max_iters=max(cfg.max_iters, deep_cap // 23 + 1024))))
 
     import time as _time
@@ -951,7 +806,8 @@ class _GoldPool:
     launches.  The pool is forked ONCE (heavy state — index, bit planes,
     reads — reaches workers by copy-on-write); later submissions only
     ship read indices.  Workers touch nothing but numpy + the native
-    library, so forking under a live JAX client is safe."""
+    library, never the device client, so forking under a live JAX client
+    is safe as long as the child does not touch JAX."""
 
     def __init__(self, idx, reads: Reads, params: AlnParams, precalc,
                  n_workers: int = 1):
@@ -1057,27 +913,6 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
     nc = 11 if params.is_multiref else 4
     root_plen = int(params.precalc_len) if precalc is not None else 0
 
-    # ring-queue resident kernel (same coverage rule as the fixed path):
-    # the whole continuous-batching loop runs inside pallas_call segments,
-    # with the XLA switch_step between segments.  The per-lane pop clock
-    # (engine/inexact.py RING) makes the ring budget per-read exact, so
-    # this is the primary chr21 engine (round 5) — fixed tiers remain for
-    # retries and non-covered configs.
-    import jax as _jax
-    resident_q = (cfg.backend != "xla" and precalc is None
-                  and str(didx.idt) != "int64" and cfg.xsteps == 1
-                  and _jax.default_backend() == "tpu"
-                  and lanes % 128 == 0)
-    if resident_q and lanes > 1024:
-        # the resident kernel tops out at 1024 lanes (VMEM working set);
-        # 1024 resident lanes beat wider XLA-glue lane counts — per-wave
-        # cost is DMA-issue-bound, so width past ~1024 buys little
-        lanes = 1024
-    if resident_q:
-        cfg = dataclasses.replace(cfg, backend="resident",
-                                  xcap=128 if params.is_multiref else
-                                  cfg.xcap)
-
     # overlapped host-gold pool, forked BEFORE the D pass so pre-routed
     # reads keep the host core busy from the first scanned chunk onward
     pool: _GoldPool | None = None
@@ -1088,14 +923,13 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         try:
             pool = _GoldPool(idx, reads, params, precalc,
                              n_workers=max(1, int(params.n_threads)))
-        except Exception:
+        except (OSError, ValueError):     # no fork / no processes
             pool = None
 
     # one forward D pass: search bounds + difficulty ordering + escalation.
-    # The gold pool idles through the scan ON PURPOSE: this box's one core
-    # runs the native scanner, and overlapping the pool with it was
-    # measured to slow the scan 3.5x (1.4s -> 5.2s) for less offload than
-    # the post-scan route below provides.
+    # The gold pool idles through the scan ON PURPOSE: on a one-core host,
+    # overlapping the pool with the native scanner slowed the scan more
+    # than the post-scan route below offloads.
     Dr_all, Dsr_all, dov_raw = calc_d_all(
         didx, reads, params, batch=min(lanes, _pow2_at_least(NR)),
         d_cap=d_cap, host_idx=idx)
@@ -1133,8 +967,6 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
     out: list = [None] * NR
     iters_total = 0
     t_search = 0.0
-    dma = {"dma_pop_rows": 0, "dma_fat_rows": 0, "dma_wr_rows": 0,
-           "work_units": 0}
     pass_log: list[dict] = []
 
     def ring_pass(sub: np.ndarray, lanes_p: int, cfg_p: EngineConfig,
@@ -1161,7 +993,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         nframe = max((int(cfg_p.cap) - nroot) // nslot - 1, 2)
         # per-launch size: qchunk_p*lanes reads, shrunk so the iteration
         # budget (each of ceil(Q/lanes) reads a lane serves can take up
-        # to NFRAME pops) stays inside the 23-bit packed-prev-link range
+        # to NFRAME pops) stays inside the 24-bit packed-prev-link range
         q_chunks = max(1, min(int(qchunk_p),
                               (iter_cap - 4096) // nframe - 2))
         Q = min(_pow2_at_least(NQ, lo=lanes_p), q_chunks * lanes_p)
@@ -1170,7 +1002,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             cfg_p,
             max_iters=min(max(int(cfg_p.max_iters), need), iter_cap))
         t0p = _time.time()
-        it0, wk0 = iters_total, dma["work_units"]
+        it0 = iters_total
         failed_p: list[int] = []
 
         def dispatch(cs: int) -> dict:
@@ -1208,13 +1040,6 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
             t_sq = _time.time()
             iters_total += int(np.asarray(res["iters"]))
             t_search += _time.time() - t_sq
-            for ks, kd in (("dma_pop", "dma_pop_rows"),
-                           ("dma_fat", "dma_fat_rows"),
-                           ("dma_wr", "dma_wr_rows")):
-                if ks in res:
-                    dma[kd] += int(np.asarray(res[ks]))
-            if "n_work" in res:
-                dma["work_units"] += int(np.asarray(res["n_work"]).sum())
             overflow = np.asarray(res["overflow"])[:nb] | seed_over[cs:ce]
             for r in np.flatnonzero(overflow):
                 failed_p.append(int(sub[cs + r]))
@@ -1238,8 +1063,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         pass_log.append(dict(B=lanes_p, cap=int(cfg_p.cap),
                              reads=int(NQ), failed=len(failed_p),
                              sec=round(_time.time() - t0p, 2),
-                             waves=iters_total - it0,
-                             work=dma["work_units"] - wk0))
+                             waves=iters_total - it0))
         return failed_p
 
     pending_assembly: list[dict] = []
@@ -1248,8 +1072,7 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
         """Build the Aln lists of every collected launch (Python-side;
         runs while a later pass occupies the device).  Bulk .tolist()
         first: Python-int indexing is ~10x cheaper than per-element
-        numpy scalar fetches, and this loop was the bench's largest
-        un-hidden host cost (16K reads ~ seconds)."""
+        numpy scalar fetches."""
         while pending_assembly:
             h = pending_assembly.pop(0)
             sub_h, cs, nb = h["sub"], h["cs"], h["nb"]
@@ -1341,5 +1164,5 @@ def _align_queued(idx, didx, reads: Reads, params: AlnParams,
                      t_search=round(t_search, 3),
                      t_host=round(_time.time() - t_start - t_dbounds
                                   - t_search, 3),
-                     tiers=pass_log, **dma)
+                     tiers=pass_log)
     return out

@@ -1,11 +1,11 @@
 """Batched FM-index rank kernels (XLA path).
 
 Each function takes a vector of BWT positions and returns occurrence bounds
-for a whole batch in lockstep — the TPU-native replacement for the
+for a whole batch in lockstep — the data-parallel replacement for the
 reference's per-call checkpoint+popcount loops (bwt.c:348-781).  The compute
 shape is: gather one 16-word bit-plane row + one 16-wide int32 checkpoint row
-per query, then count code matches with XNOR-AND + `population_count` on the
-VPU (the reference's nibble-XOR + 65,536-entry LUT, bwt.c:575-600, recast as
+per query, then count code matches with XNOR-AND + `population_count` as
+vector bit math (the reference's nibble-XOR + 65,536-entry LUT, bwt.c:575-600, recast as
 vector bit math; 64 popcounts replace a 128x16 one-hot reduction).
 
 Two 16-char variants exist on purpose:

@@ -1,23 +1,22 @@
-"""Multi-chip execution: DP over reads x TP over the index, via shard_map.
+"""Multi-device execution: DP over reads x TP over the index, via shard_map.
 
 The reference scales with OpenMP threads over a shared read-only index on one
-node (align_reads_inexact_parallel, inexact_match.c:92-168).  The TPU-native
-design replaces both the threads and the shared memory:
+node (align_reads_inexact_parallel, inexact_match.c:92-168).  Here the
+devices of a `jax.sharding.Mesh` replace the threads:
 
-- **dp axis** — reads are data-parallel: each chip runs the lockstep engines
-  on its own read shard.  No communication at all on this axis (matching the
-  reference's embarrassingly-parallel structure).
-- **tp axis** — the FM-index is range-sharded: each chip holds a contiguous
-  range of BWT blocks + occ checkpoints (checkpoints store *global* ranks, so
-  any shard answers its own positions directly).  A rank query gathers from
-  exactly one shard; misses contribute zeros and one `psum` over tp
-  reconstructs the row on every chip (engine.rank._take_rows).  This is the
-  megatron-style layout: search state replicated along tp, index weights
-  sharded, one ICI all-reduce per rank round.
+- **dp axis** — reads are data-parallel: each device runs the lockstep
+  engines on its own read shard.  No communication at all on this axis
+  (matching the reference's embarrassingly-parallel structure).
+- **tp axis** — the FM-index is range-sharded: each device holds a
+  contiguous range of BWT blocks + occ checkpoints (checkpoints store
+  *global* ranks, so any shard answers its own positions directly).  A rank
+  query gathers from exactly one shard; misses contribute zeros and one
+  `psum` over tp reconstructs the row on every device
+  (engine.rank._take_rows): search state replicated along tp, index
+  sharded, one all-reduce per rank round.
 
-Whole-genome fwd+RC (~6.4 G positions) exceeds int32 on one chip; tp-sharding
-with per-shard-local block indices keeps every on-device index within int32
-while the mesh covers the full genome.
+The mesh is a plain reshape of the device list: every device of a host
+reaches every other at the same rate, so no topology is assumed.
 """
 
 from __future__ import annotations
@@ -32,28 +31,18 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from bwbble_tpu.align.params import AlnParams
 from bwbble_tpu.engine.device_index import DeviceIndex
-from bwbble_tpu.engine.inexact import EngineConfig, inexact_search
+from bwbble_tpu.engine.inexact import (EngineConfig, inexact_search,
+                                       pack_paths, walk_paths)
 from bwbble_tpu.engine.dbound import calc_d, calc_d_1to1
 from bwbble_tpu.engine.rank import sa_resolve
-
-try:  # jax>=0.4.35 moved shard_map out of experimental
-    from jax import shard_map as _shard_map_mod  # type: ignore
-    _shard_map = _shard_map_mod.shard_map if hasattr(
-        _shard_map_mod, "shard_map") else _shard_map_mod
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
-import inspect
-
-_REP_KW = ("check_vma" if "check_vma"
-           in inspect.signature(_shard_map).parameters else "check_rep")
 
 
 def shard_map(f, *, mesh, in_specs, out_specs):
     # Replication checking is disabled: outputs are value-replicated along tp
     # by construction (every tp member holds identical post-psum state), which
     # the static checker cannot prove.
-    return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                      **{_REP_KW: False})
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def make_mesh(dp: int, tp: int = 1, devices=None) -> Mesh:
@@ -105,29 +94,28 @@ def sharded_inexact_search(mesh: Mesh, didx: DeviceIndex, rc, lengths,
     """inexact_search over a (dp, tp) mesh; same outputs, batch-sharded.
 
     Lanes are padded to a dp multiple with zero-length reads (which finish
-    immediately); callers slice outputs back to the true batch.  The node
-    arena comes back sharded on its LANE axis (P(None, "dp", None)), so
-    walk_paths works on it unchanged with global lane ids: a lane's frames
-    live entirely on its own device, and frame ids are lane-local.
+    immediately); callers slice outputs back to the true batch.  In place
+    of the node arena it returns `paths`: every alignment slot's state
+    path, walked on the device that holds the lane's arena (a walk over
+    the global arena would gather every shard's arena onto one device).
     """
     dp, tp = mesh.shape["dp"], mesh.shape["tp"]
     didx = pad_index_for_tp(didx, tp)
     (rc, lengths, D, D_seed), B = _pad_batch((rc, lengths, D, D_seed), dp)
 
     def body(didx_l, rc_l, len_l, D_l, Ds_l):
-        # tp == 1: the index is fully replicated per shard, rank queries
-        # are local, and the Pallas backends (incl. the resident kernel)
-        # are eligible — dp sharding needs zero cross-chip communication
-        # during the search (inexact_match.c:92-168's embarrassing
-        # parallelism, mapped to the mesh).  tp > 1 range-shards the index
-        # and routes rank queries through psum, which only the XLA body
-        # implements.
+        # tp == 1: the index is fully replicated per shard and rank
+        # queries are local — dp sharding needs zero cross-device
+        # communication during the search (inexact_match.c:92-168's
+        # embarrassing parallelism, mapped to the mesh).  tp > 1
+        # range-shards the index and routes rank queries through psum.
         didx_l = dataclasses.replace(didx_l,
                                      tp_axis="tp" if tp > 1 else None)
         out = inexact_search(didx_l, rc_l, len_l, D_l, Ds_l, params, cfg)
         out["iters"] = jnp.broadcast_to(out["iters"], rc_l.shape[:1])
-        for k in ("dma_pop", "dma_fat", "dma_wr"):   # per-shard scalars
-            out.pop(k, None)
+        out["paths"] = _slot_paths(out, params, cfg, rc_l.shape[1],
+                                   str(didx_l.idt) == "int64")
+        del out["arena"]
         return out
 
     out_specs = dict(
@@ -135,15 +123,30 @@ def sharded_inexact_search(mesh: Mesh, didx: DeviceIndex, rc, lengths,
         o_score=P("dp", None), o_len=P("dp", None), o_node=P("dp", None),
         o_mm=P("dp", None), o_go=P("dp", None), o_ge=P("dp", None),
         o_snp=P("dp", None), o_plen=P("dp", None), overflow=P("dp"),
-        iters=P("dp"), n_pushed=P("dp"), n_work=P("dp"), ovwhy=P("dp"),
-        arena=P(None, "dp", None))
+        iters=P("dp"), n_pushed=P("dp"), paths=P("dp", None, None))
     fn = shard_map(body, mesh=mesh,
                    in_specs=(_index_specs(), P("dp", None), P("dp"),
                              P("dp", None, None), P("dp", None, None)),
                    out_specs=out_specs)
     out = fn(didx, rc, lengths, D, D_seed)
-    return {k: (v[:, :B] if k == "arena" else v[:B])
-            for k, v in out.items()}
+    return {k: v[:B] for k, v in out.items()}
+
+
+def _slot_paths(out, params: AlnParams, cfg: EngineConfig, lmax: int,
+                x64: bool):
+    """2-bit packed reverse-order state paths [B, acap, ceil(pathcap/4)]
+    of every alignment slot of a fixed-batch (unseeded) result; empty
+    slots walk nothing."""
+    nc = 11 if params.is_multiref else 4
+    B, acap = out["o_node"].shape
+    pathcap = cfg.pathcap or (lmax + 32)
+    live = jnp.arange(acap)[None, :] < out["n_alns"][:, None]
+    nodes = jnp.where(live, out["o_node"], -1).reshape(-1)
+    lanes = jnp.repeat(jnp.arange(B, dtype=jnp.int32), acap)
+    paths = walk_paths(out["arena"], lanes, nodes, nroot=1,
+                       nslot=1 + 2 * nc, nc=nc, pathcap=pathcap,
+                       nw=6 if x64 else 4)
+    return pack_paths(paths.reshape(B, acap, pathcap))
 
 
 @partial(jax.jit, static_argnames=("mesh", "params", "K", "max_len"))
@@ -218,8 +221,6 @@ def sharded_align_step(mesh: Mesh, didx: DeviceIndex, seq, rc, lengths,
         out = inexact_search(didx_l, rc_l, len_l, D, Ds, params, cfg)
         out["overflow"] = out["overflow"] | dov1 | (dov2 & use_seed)
         out["iters"] = jnp.broadcast_to(out["iters"], rc_l.shape[:1])
-        for k in ("dma_pop", "dma_fat", "dma_wr"):   # per-shard scalars
-            out.pop(k, None)
         # resolve ref_pos of the first (best) alignment per read
         rows = jnp.where(out["n_alns"] > 0, out["o_L"][:, 0], 0)
         out["ref_pos"] = jnp.where(out["n_alns"] > 0,

@@ -4,8 +4,9 @@
 // Fresh implementation of the SA-IS induced-sorting algorithm
 // (G. Nong, S. Zhang, W. H. Chan, "Two Efficient Algorithms for Linear Time
 // Suffix Array Construction", 2009).  Plays the role of the reference's
-// in-RAM suffix sorter (mg-aligner/is.c) for index construction; the query
-// path runs on TPU and never calls into this library.
+// in-RAM suffix sorter (mg-aligner/is.c) for index construction, plus the
+// host gold engine and D-bound scanner that the device pipeline falls back
+// to and overlaps with device work.
 //
 // Exposed via a C ABI for ctypes (see bwbble_tpu/native.py).
 

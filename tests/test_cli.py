@@ -84,3 +84,26 @@ def test_index_esa(world, tmp_path):
     os.remove(fa + ".bwt")
     assert main(["index", "-e", str(esa), fa]) == 0
     assert open(fa + ".bwt", "rb").read() == ref_bwt
+
+
+@pytest.mark.parametrize("env_dir", [None, "/elsewhere/jax-cache"])
+def test_compilation_cache_placement(monkeypatch, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is left to JAX; otherwise the
+    cache lives at one fixed path inside the checkout."""
+    import jax
+    from bwbble_tpu import cli
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        if env_dir is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            want = os.path.join(repo, ".jax_cache")
+        else:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+            # what JAX itself takes from the variable at start-up
+            jax.config.update("jax_compilation_cache_dir", env_dir)
+            want = env_dir
+        assert cli.enable_compilation_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)

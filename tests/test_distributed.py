@@ -1,4 +1,4 @@
-"""Multi-host runtime (VERDICT r1 item 5): two jax.distributed CPU
+"""Multi-host runtime: two jax.distributed CPU
 processes align disjoint read shards and the rank-0 merge must be
 byte-identical to a single-process run."""
 

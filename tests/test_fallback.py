@@ -1,7 +1,7 @@
 """Host gold fallback under capacity overflow.
 
 Deliberately tiny engine capacities force reads onto the gold engine
-(VERDICT r1 item 7: the degradation path must be measured and parallel).
+(the degradation path must be measured and parallel).
 Checks: results stay byte-identical to the all-gold run, the fallback
 counter reports the storm, and -t > 1 (fork pool) produces identical
 results to serial fallback.

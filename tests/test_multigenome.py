@@ -57,6 +57,12 @@ def mg_world(tmp_path_factory):
     with open(d / "r.fq", "w") as f:
         for n, s in reads:
             f.write(f"@{n}\n{s}\n+\n{'I' * len(s)}\n")
+
+    # our side of the pipeline, shared by every test of this module
+    mgb, fq = str(d / "mgb.fa"), str(d / "r.fq")
+    assert main(["index", mgb]) == 0
+    assert main(["align", "-n", "2", mgb, fq, str(d / "g.aln")]) == 0
+    assert main(["aln2sam", mgb, fq, str(d / "g.aln"), str(d / "g.sam")]) == 0
     return {"d": d, "snp_pos": snp_pos}
 
 
@@ -69,9 +75,6 @@ def test_multigenome_e2e_parity(mg_world, oracle_bin, tmp_path):
     d = mg_world["d"]
     mgb = str(d / "mgb.fa")
     fq = str(d / "r.fq")
-    assert main(["index", mgb]) == 0
-    assert main(["align", "-n", "2", mgb, fq, str(d / "g.aln")]) == 0
-    assert main(["aln2sam", mgb, fq, str(d / "g.aln"), str(d / "g.sam")]) == 0
 
     # oracle on a copy of the same inputs
     import shutil

@@ -103,7 +103,7 @@ def test_tp_rank_rows_match_replicated(small_world):
 def test_mesh_product_path_aln_byte_parity(small_world, tmp_path):
     """The --mesh pipeline (align_reads_device(mesh=...)) must emit a byte-
     identical .aln to the single-device pipeline: full D bounds, DFS, path
-    walk, overflow handling, and serialization (VERDICT r1 item 4)."""
+    walk, overflow handling, and serialization."""
     from bwbble_tpu.engine.pipeline import align_reads_device
     from bwbble_tpu.formats.aln import write_aln_file
 
